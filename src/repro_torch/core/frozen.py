@@ -1,0 +1,359 @@
+"""Frozen CSR-style inverted tables and the fused probe arena.
+
+Carried over from ``repro/core/frozen.py`` (NumPy host code), trimmed to
+the columnar freeze, persistence and the arena's host probe.  The arrays
+are byte-identical to the reference's, which is what lets a store written
+by either package load in the other.
+
+One table per sketch coordinate:
+
+  keys    uint64 (nkeys,)    sorted packed hash identities
+  offsets int64  (nkeys+1,)  CSR row pointers into ``windows``
+  windows int32  (nwin, 5)   (tid, a, b, c, d) rows, grouped by key
+
+ICWS identities ``(token, k_int)`` pack as ``(token << 32) | (k_int -
+kint_min)``; multiset hashes are stored as they are.
+
+``ProbeArena`` fuses the k tables into ONE sorted key arena with one global
+CSR offsets array and one windows matrix.  Two re-keyings:
+
+* ``packed`` — every key fits in 56 bits: ``(coord << 56) | key``, one
+  plain sorted array (the top bit is set once coord >= 128).
+* ``coord``  — 61/64-bit multiset keys sorted by ``(key, coord)`` with a
+  uint16 coordinate-tag array; the probe advances over the duplicate-key
+  run (bounded by ``max_run``).
+
+Keys are compared as UNSIGNED 64-bit everywhere; the device probe
+(:mod:`repro_torch.kernels.probe_arena`) keeps that order on int64 tensors.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+
+KIND_EMPTY = "empty"
+KIND_INT = "int"
+KIND_PAIR = "pair"
+
+_MISS = np.uint64(0xFFFFFFFFFFFFFFFF)  # sentinel for unpackable probe keys
+
+
+def _pack_pairs(toks: np.ndarray, kints: np.ndarray, kint_min
+                ) -> tuple[np.ndarray, np.ndarray]:
+    """Vectorized ``(token << 32) | (k_int - kint_min)`` pair packing with
+    its uint32 range checks: -> (packed u64 with ``_MISS`` on out-of-range,
+    valid mask).  ``kint_min`` may be a scalar (one table) or an array
+    broadcast against the inputs (the arena's per-coordinate biases)."""
+    rel = kints - kint_min
+    ok = (toks >= 0) & (toks < 1 << 32) & (rel >= 0) & (rel < 1 << 32)
+    packed = (np.where(ok, toks, 0).astype(np.uint64) << np.uint64(32)) | \
+        np.where(ok, rel, 0).astype(np.uint64)
+    return np.where(ok, packed, _MISS), ok
+
+
+def pack_ident_columns(kind: str, ident: np.ndarray
+                       ) -> tuple[np.ndarray, int]:
+    """Pack per-window identity columns into sortable uint64 keys.
+
+    ``ident`` is what the columnar build pipeline accumulates: uint64 (N,)
+    hash values for ``kind == "int"`` tables, int64 (N, 2) (token, k_int)
+    rows for ``kind == "pair"``.  Returns (packed u64 (N,), kint_min),
+    raising when a pair does not fit the pack — the distinct values of the
+    window column ARE the table's keys, so checking all windows is
+    checking all keys.
+    """
+    if kind == KIND_PAIR:
+        toks = ident[:, 0]
+        kints = ident[:, 1]
+        if len(toks) and (toks.min() < 0 or toks.max() >= 1 << 32):
+            raise ValueError("token id out of uint32 range: cannot "
+                             "pack (token, k_int) keys for freezing")
+        kint_min = int(kints.min()) if len(kints) else 0
+        if len(kints) and int(kints.max()) - kint_min >= 1 << 32:
+            raise ValueError("k_int span exceeds uint32: cannot pack "
+                             "(token, k_int) keys for freezing")
+        packed = (toks.astype(np.uint64) << np.uint64(32)) | \
+            (kints - kint_min).astype(np.uint64)
+        return packed, kint_min
+    return np.ascontiguousarray(ident, np.uint64), 0
+
+
+def _concat_ranges(starts: np.ndarray, counts: np.ndarray) -> np.ndarray:
+    """Concatenate [s, s+c) ranges into one index vector, vectorized."""
+    total = int(counts.sum())
+    if total == 0:
+        return np.empty(0, np.int64)
+    rep_starts = np.repeat(starts, counts)
+    ends = np.cumsum(counts)
+    seq = np.arange(total, dtype=np.int64) - np.repeat(ends - counts, counts)
+    return rep_starts + seq
+
+
+@dataclass
+class FrozenTable:
+    """One immutable CSR inverted table (one sketch coordinate)."""
+
+    kind: str
+    keys: np.ndarray        # uint64 (nkeys,), sorted
+    offsets: np.ndarray     # int64 (nkeys + 1,)
+    windows: np.ndarray     # int32 (nwin, 5): tid, a, b, c, d
+    kint_min: int = 0       # pair-pack bias (kind == "pair" only)
+
+    # -- construction -------------------------------------------------------
+
+    @classmethod
+    def from_packed_columns(cls, kind: str, packed: np.ndarray,
+                            windows: np.ndarray, kint_min: int = 0
+                            ) -> "FrozenTable":
+        """Columnar freeze: per-window packed keys + window rows -> CSR.
+
+        One global stable argsort groups the windows by ascending key while
+        preserving append order within each key.
+        """
+        n = len(packed)
+        if n == 0:
+            return cls(kind=KIND_EMPTY, keys=np.empty(0, np.uint64),
+                       offsets=np.zeros(1, np.int64),
+                       windows=np.empty((0, 5), np.int32))
+        order = np.argsort(packed, kind="stable")
+        packed = packed[order]
+        windows = np.ascontiguousarray(
+            np.asarray(windows, np.int32).reshape(-1, 5)[order])
+        starts = np.concatenate(
+            [[0], np.flatnonzero(packed[1:] != packed[:-1]) + 1])
+        offsets = np.concatenate([starts, [n]]).astype(np.int64)
+        return cls(kind=kind, keys=np.ascontiguousarray(packed[starts]),
+                   offsets=offsets, windows=windows, kint_min=kint_min)
+
+    # -- introspection / persistence ----------------------------------------
+
+    def __len__(self) -> int:
+        return len(self.keys)
+
+    def state_dict(self) -> dict:
+        return {"kind": self.kind, "keys": self.keys, "offsets": self.offsets,
+                "windows": self.windows, "kint_min": self.kint_min}
+
+    @classmethod
+    def from_state(cls, state: dict) -> "FrozenTable":
+        return cls(kind=state["kind"],
+                   keys=np.asarray(state["keys"], np.uint64),
+                   offsets=np.asarray(state["offsets"], np.int64),
+                   windows=np.asarray(state["windows"], np.int32),
+                   kint_min=int(state["kint_min"]))
+
+
+# --------------------------------------------------------------------------
+# fused probe arena
+# --------------------------------------------------------------------------
+
+PACK_SHIFT = 56                    # coord tag bits in "packed" mode
+_PACK_LIMIT = np.uint64(1) << np.uint64(PACK_SHIFT)
+
+MODE_PACKED = "packed"
+MODE_COORD = "coord"
+
+
+@dataclass
+class ProbeArena:
+    """All k frozen tables fused into one device-residable CSR structure.
+
+    See the module docstring for the two re-keying schemes.  ``windows``
+    rows are regrouped so each arena slot's CSR range is contiguous, which
+    keeps the batch gather a single ``_concat_ranges`` + fancy index.
+    """
+
+    mode: str
+    keys: np.ndarray          # uint64 (nslots,), globally sorted (see mode)
+    coords: np.ndarray        # uint16 (nslots,) coordinate tags ("coord"
+                              # mode; empty in "packed" mode)
+    offsets: np.ndarray       # int64 (nslots + 1,) global CSR row pointers
+    windows: np.ndarray       # int32 (nwin, 5): tid, a, b, c, d
+    kinds: list[str]          # per-coordinate table kind
+    kint_mins: np.ndarray     # int64 (k,) per-coordinate pair-pack bias
+    max_run: int = 1          # longest equal-key run ("coord" mode bound)
+
+    # -- construction -------------------------------------------------------
+
+    @classmethod
+    def from_tables(cls, tables: list[FrozenTable]) -> "ProbeArena":
+        k = len(tables)
+        packable = k <= (1 << (64 - PACK_SHIFT)) and all(
+            t.keys.size == 0 or np.uint64(t.keys.max()) < _PACK_LIMIT
+            for t in tables)
+        mode = MODE_PACKED if packable else MODE_COORD
+        kinds = [t.kind for t in tables]
+        kint_mins = np.array([t.kint_min for t in tables], np.int64)
+        key_chunks, coord_chunks, count_chunks, start_chunks, win_chunks = \
+            [], [], [], [], []
+        win_base = 0
+        for i, t in enumerate(tables):
+            key_chunks.append(t.keys)
+            coord_chunks.append(np.full(len(t.keys), i, np.uint16))
+            count_chunks.append(np.diff(t.offsets))
+            start_chunks.append(t.offsets[:-1] + win_base)
+            win_chunks.append(np.asarray(t.windows))
+            win_base += len(t.windows)
+        keys = np.concatenate(key_chunks) if key_chunks else \
+            np.empty(0, np.uint64)
+        coords = np.concatenate(coord_chunks) if coord_chunks else \
+            np.empty(0, np.uint16)
+        counts = np.concatenate(count_chunks) if count_chunks else \
+            np.empty(0, np.int64)
+        starts = np.concatenate(start_chunks) if start_chunks else \
+            np.empty(0, np.int64)
+        windows = np.concatenate(win_chunks) if win_chunks else \
+            np.empty((0, 5), np.int32)
+        max_run = 1
+        if mode == MODE_PACKED:
+            # per-coordinate segments are sorted, so the coordinate-major
+            # concatenation is globally sorted once coord rides the top bits
+            keys = (coords.astype(np.uint64) << np.uint64(PACK_SHIFT)) | keys
+            coords = np.empty(0, np.uint16)
+            # windows are already grouped in slot order
+        else:
+            order = np.lexsort((coords, keys))   # key primary, coord tie
+            keys = np.ascontiguousarray(keys[order])
+            coords = np.ascontiguousarray(coords[order])
+            starts, counts = starts[order], counts[order]
+            windows = windows[_concat_ranges(starts, counts)]
+            if keys.size:
+                change = np.flatnonzero(keys[1:] != keys[:-1])
+                bounds = np.concatenate([[0], change + 1, [len(keys)]])
+                max_run = int(np.diff(bounds).max())
+        offsets = np.zeros(len(keys) + 1, np.int64)
+        np.cumsum(counts, out=offsets[1:])
+        return cls(mode=mode, keys=keys, coords=coords, offsets=offsets,
+                   windows=windows, kinds=kinds, kint_mins=kint_mins,
+                   max_run=max_run)
+
+    @classmethod
+    def from_window_columns(cls, kinds: list[str],
+                            packed_cols: list[np.ndarray],
+                            window_cols: list[np.ndarray],
+                            kint_mins: np.ndarray) -> "ProbeArena":
+        """Build the arena straight from per-coordinate window columns.
+
+        ``packed_cols[i]``/``window_cols[i]`` are coordinate i's per-window
+        packed keys (``pack_ident_columns``) and int32 (n_i, 5) rows in
+        append order — the columnar build pipeline's buffers.  ONE global
+        lexsort replaces the per-table sort + slot regroup of
+        ``from_tables``; the result is array-identical to
+        ``from_tables([FrozenTable.from_packed_columns(...)])`` because
+        both orderings group windows by (coordinate, key) — resp. (key,
+        coordinate) — with append order preserved inside each slot.
+        """
+        k = len(kinds)
+        key_w = np.concatenate(packed_cols) if packed_cols else \
+            np.empty(0, np.uint64)
+        coord_w = np.concatenate(
+            [np.full(len(p), i, np.uint16)
+             for i, p in enumerate(packed_cols)]) if packed_cols else \
+            np.empty(0, np.uint16)
+        windows = np.concatenate(
+            [np.asarray(w, np.int32).reshape(-1, 5) for w in window_cols]
+        ) if window_cols else np.empty((0, 5), np.int32)
+        packable = k <= (1 << (64 - PACK_SHIFT)) and (
+            key_w.size == 0 or np.uint64(key_w.max()) < _PACK_LIMIT)
+        mode = MODE_PACKED if packable else MODE_COORD
+        n = len(key_w)
+        max_run = 1
+        if n == 0:
+            keys = np.empty(0, np.uint64)
+            coords = np.empty(0, np.uint16)
+            offsets = np.zeros(1, np.int64)
+        elif mode == MODE_PACKED:
+            order = np.lexsort((key_w, coord_w))   # coord-major, key asc
+            qk = (coord_w[order].astype(np.uint64)
+                  << np.uint64(PACK_SHIFT)) | key_w[order]
+            windows = np.ascontiguousarray(windows[order])
+            starts = np.concatenate(
+                [[0], np.flatnonzero(qk[1:] != qk[:-1]) + 1])
+            keys = np.ascontiguousarray(qk[starts])
+            coords = np.empty(0, np.uint16)
+            offsets = np.concatenate([starts, [n]]).astype(np.int64)
+        else:
+            order = np.lexsort((coord_w, key_w))   # key primary, coord tie
+            sk, sc = key_w[order], coord_w[order]
+            windows = np.ascontiguousarray(windows[order])
+            starts = np.concatenate(
+                [[0], np.flatnonzero((sk[1:] != sk[:-1]) |
+                                     (sc[1:] != sc[:-1])) + 1])
+            keys = np.ascontiguousarray(sk[starts])
+            coords = np.ascontiguousarray(sc[starts])
+            offsets = np.concatenate([starts, [n]]).astype(np.int64)
+            if keys.size:
+                change = np.flatnonzero(keys[1:] != keys[:-1])
+                bounds = np.concatenate([[0], change + 1, [len(keys)]])
+                max_run = int(np.diff(bounds).max())
+        return cls(mode=mode, keys=keys, coords=coords, offsets=offsets,
+                   windows=windows, kinds=list(kinds),
+                   kint_mins=np.asarray(kint_mins, np.int64),
+                   max_run=max_run)
+
+    # -- probing ------------------------------------------------------------
+
+    @property
+    def k(self) -> int:
+        return len(self.kinds)
+
+    def encode_batch(self, sketches) -> tuple[np.ndarray, np.ndarray,
+                                              np.ndarray]:
+        """Pack a batch of sketches into flat probe arrays.
+
+        sketches: B lists of k identities (ints or (token, k_int) tuples).
+        Returns (probe_keys u64, probe_coords u16, valid bool), each
+        (B*k,) in (query-major, coordinate-minor) order.
+        """
+        B = len(sketches)
+        k = self.k
+        coords = np.tile(np.arange(k, dtype=np.uint16), B)
+        live = np.array([kind != KIND_EMPTY for kind in self.kinds], bool)
+        valid = np.tile(live, B)
+        if B and isinstance(sketches[0][0], (tuple, list, np.ndarray)):
+            ident = np.asarray(sketches, np.int64)          # (B, k, 2)
+            pkeys, ok = _pack_pairs(ident[..., 0], ident[..., 1],
+                                    self.kint_mins[None, :])
+            pkeys = pkeys.ravel()
+            valid &= ok.ravel()
+        else:
+            pkeys = np.array(sketches, np.uint64).reshape(-1)
+        if self.mode == MODE_PACKED:
+            # stored keys all fit in 56 bits, so wider probes cannot hit
+            valid &= pkeys < _PACK_LIMIT
+        return pkeys, coords, valid
+
+    def probe(self, pkeys: np.ndarray, coords: np.ndarray,
+              valid: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """Vectorized host lookup -> CSR (starts, ends) int64, one
+        ``searchsorted`` for the whole batch.  Misses get an empty range
+        (start == end == 0)."""
+        n = len(self.keys)
+        if n == 0 or len(pkeys) == 0:
+            z = np.zeros(len(pkeys), np.int64)
+            return z, z
+        if self.mode == MODE_PACKED:
+            q = (coords.astype(np.uint64) << np.uint64(PACK_SHIFT)) | \
+                np.where(valid, pkeys, 0)
+            pos = np.searchsorted(self.keys, q)
+            safe = np.minimum(pos, n - 1)
+            hit = valid & (pos < n) & (self.keys[safe] == q)
+        else:
+            pos = np.searchsorted(self.keys, pkeys)
+            # advance over the (tiny) duplicate run to the probe's
+            # coordinate; bounded by the longest equal-key run
+            for _ in range(self.max_run - 1):
+                safe = np.minimum(pos, n - 1)
+                adv = (pos < n) & (self.keys[safe] == pkeys) & \
+                    (self.coords[safe] < coords)
+                if not adv.any():
+                    break
+                pos = pos + adv
+            safe = np.minimum(pos, n - 1)
+            hit = valid & (pos < n) & (self.keys[safe] == pkeys) & \
+                (self.coords[safe] == coords)
+        starts = np.where(hit, self.offsets[safe], 0)
+        ends = np.where(hit, self.offsets[safe + 1], 0)
+        return starts, ends

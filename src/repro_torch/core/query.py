@@ -1,0 +1,327 @@
+"""Query processing (Algorithm 2): sketch the queries, probe the k inverted
+lists, plane-sweep the collided compact windows for cells covered >= ⌈kθ⌉
+times (those subsequences have estimated Jaccard >= θ, Eq. 2/Eq. 5).
+
+Carried over from ``repro/core/query.py``, trimmed to the batched serving
+path.  ``batch_query`` resolves the execution plan once per batch:
+
+* ``plan="device"`` (the default) hands the probe and the sweep to
+  :func:`repro_torch.core.device_plan.fused_batch_query` (torch on an
+  explicit device, hand-written CUDA kernels on the card);
+* ``plan="cpu"`` probes the fused arena with one host ``searchsorted``,
+  groups the collided windows by (query, text) with one lexsort, and
+  sweeps the many tiny groups through one vectorized small-group sweep
+  (``_sweep_small_batch``) and the rare large ones through ``_sweep_text``.
+
+The grouping, the host sweeps and the run extraction are NumPy, shared by
+both plans, so the two are block-identical by construction.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from dataclasses import dataclass
+
+import numpy as np
+
+from .frozen import _concat_ranges
+from .plan import resolve_plan
+from .results import QueryOptions
+
+
+@dataclass
+class Alignment:
+    """All result subsequences of one data text, as maximal blocks.
+
+    blocks: list of (i_lo, i_hi, j_lo, j_hi) — every T[i..j] with
+    i ∈ [i_lo, i_hi], j ∈ [j_lo, j_hi] is a result (0-indexed inclusive).
+    """
+
+    text_id: int
+    blocks: list[tuple[int, int, int, int]]
+    # distinct colliding sketch coordinates (>= ceil(k*theta) whenever
+    # blocks is non-empty); ncoords/k estimates the query<->text Jaccard
+    ncoords: int | None = None
+
+
+def _sweep_text(windows: list[tuple[int, int, int, int]], m: int
+                ) -> list[tuple[int, int, int, int]]:
+    """Cells covered by >= m of the given rectangles, as disjoint blocks.
+
+    Coordinate-compressed 2-D difference array + cumulative sums; output
+    blocks are maximal runs within each compressed stripe.
+    """
+    if len(windows) < m:
+        return []
+    arr = np.asarray(windows, dtype=np.int64)
+    a, b, c, d = arr[:, 0], arr[:, 1], arr[:, 2], arr[:, 3]
+    xs = np.unique(np.concatenate([a, b + 1]))
+    ys = np.unique(np.concatenate([c, d + 1]))
+    nx, ny = len(xs), len(ys)
+    xi_a = np.searchsorted(xs, a)
+    xi_b = np.searchsorted(xs, b + 1)
+    yi_c = np.searchsorted(ys, c)
+    yi_d = np.searchsorted(ys, d + 1)
+    # one bincount scatter of the four +-1 corner pulses (C fast path)
+    stride = ny + 1
+    pos = np.concatenate([xi_a * stride + yi_c, xi_b * stride + yi_d])
+    neg = np.concatenate([xi_a * stride + yi_d, xi_b * stride + yi_c])
+    diff = (np.bincount(pos, minlength=(nx + 1) * stride)
+            - np.bincount(neg, minlength=(nx + 1) * stride)
+            ).reshape(nx + 1, stride).astype(np.int32)
+    count = np.cumsum(np.cumsum(diff, axis=0), axis=1)
+    # xs[i]..xs[i+1]-1 stripes; the last compressed coord is always an
+    # exclusive upper bound (b+1 / d+1), so hot cannot extend past it.
+    hot = count[:nx - 1, :ny - 1] >= m
+    if not hot.any():
+        return []
+    # maximal horizontal runs per stripe, vectorized: +1/-1 edges of the
+    # zero-padded hot mask mark run starts / one-past-run ends
+    hpad = np.zeros((nx - 1, ny + 1), dtype=np.int8)
+    hpad[:, 1:ny] = hot
+    edges = np.diff(hpad, axis=1)
+    rs, cs = np.nonzero(edges == 1)       # run starts (row-major)
+    _, ce = np.nonzero(edges == -1)       # aligned exclusive run ends
+    return [(int(xs[r]), int(xs[r + 1] - 1), int(ys[c0]), int(ys[c1] - 1))
+            for r, c0, c1 in zip(rs, cs, ce)]
+
+
+_SMALL_GROUP_MAX = 32    # windows; larger groups use the per-group sweep
+_SMALL_CHUNK_CELLS = 1 << 22   # bound the batched difference-array footprint
+
+
+def _sweep_small_batch(arr: np.ndarray, sizes: np.ndarray, m: int
+                       ) -> list[list[tuple[int, int, int, int]]]:
+    """Vectorized ``_sweep_text`` over G small groups at once.
+
+    arr: int64 (G, S, 4) rectangle rows, padded past ``sizes[g]`` with
+    anything; returns per-group block lists identical to running
+    ``_sweep_text(arr[g, :sizes[g]], m)`` group by group.
+
+    Padding is normalized to zero-width rectangles at each group's max
+    boundary and given bincount weight 0, so padded entries contribute no
+    coverage and only duplicate existing compressed coordinates.  Duplicate
+    boundary values are harmless: searchsorted-left drops every pulse on
+    the first duplicate, making later duplicates exact pass-throughs, so
+    run starts/ends land on the same coordinate values as the
+    ``np.unique``-compressed per-group sweep; zero-width *stripes* are
+    masked cold because each stripe emits its own block.
+    """
+    G, S, _ = arr.shape
+    # chunk so the per-chunk difference array stays cache/RAM friendly even
+    # when a batch produces tens of thousands of small groups
+    per = max(1, _SMALL_CHUNK_CELLS // ((2 * S + 1) * (2 * S + 1)))
+    if G > per:
+        out = []
+        for lo in range(0, G, per):
+            out.extend(_sweep_small_batch(arr[lo:lo + per],
+                                          sizes[lo:lo + per], m))
+        return out
+    arr = arr.astype(np.int64, copy=True)
+    pad = np.arange(S)[None, :] >= sizes[:, None]            # (G, S)
+    a, b, c, d = arr[..., 0], arr[..., 1], arr[..., 2], arr[..., 3]
+    bmax = np.where(pad, np.iinfo(np.int64).min, b + 1).max(axis=1)
+    dmax = np.where(pad, np.iinfo(np.int64).min, d + 1).max(axis=1)
+    a[pad], c[pad] = 0, 0
+    b[pad], d[pad] = -1, -1
+    a += np.where(pad, bmax[:, None], 0)
+    b += np.where(pad, bmax[:, None], 0)
+    c += np.where(pad, dmax[:, None], 0)
+    d += np.where(pad, dmax[:, None], 0)
+
+    NX = 2 * S
+    xs = np.sort(np.concatenate([a, b + 1], axis=1), axis=1)  # (G, NX)
+    ys = np.sort(np.concatenate([c, d + 1], axis=1), axis=1)
+    # (the device sweep kernel, repro_torch.kernels.sweep_grid, reproduces
+    # everything from here to the hot mask on-device; _extract_runs is the
+    # shared tail both paths finish through)
+    # row-wise searchsorted in one call: bias each group's (small, < 2**31)
+    # coordinates into a disjoint int64 band
+    bias = np.arange(G, dtype=np.int64)[:, None] << 33
+    xs_f, ys_f = (xs + bias).ravel(), (ys + bias).ravel()
+    row0 = np.arange(G, dtype=np.int64)[:, None] * NX
+
+    def rs(flat_sorted, probes):
+        return np.searchsorted(flat_sorted,
+                               (probes + bias).ravel()).reshape(G, S) - row0
+
+    xi_a, xi_b = rs(xs_f, a), rs(xs_f, b + 1)
+    yi_c, yi_d = rs(ys_f, c), rs(ys_f, d + 1)
+
+    # one global bincount of the +-1 corner pulses (weight 0 on padding)
+    STR = NX + 1
+    cell0 = np.arange(G, dtype=np.int64)[:, None] * ((NX + 1) * STR)
+    w = np.where(pad, 0.0, 1.0).ravel()
+    ww = np.concatenate([w, w])
+    flat = lambda xi, yi: (cell0 + xi * STR + yi).ravel()
+    L = G * (NX + 1) * STR
+    pos = np.concatenate([flat(xi_a, yi_c), flat(xi_b, yi_d)])
+    neg = np.concatenate([flat(xi_a, yi_d), flat(xi_b, yi_c)])
+    diff = (np.bincount(pos, weights=ww, minlength=L)
+            - np.bincount(neg, weights=ww, minlength=L)
+            ).reshape(G, NX + 1, STR).astype(np.int32)
+    count = np.cumsum(np.cumsum(diff, axis=1), axis=2)
+    hot = count[:, :NX - 1, :NX - 1] >= m
+    hot &= (xs[:, 1:] > xs[:, :-1])[:, :, None]              # zero-width
+    return _extract_runs(hot, xs, ys)
+
+
+def _extract_runs(hot: np.ndarray, xs: np.ndarray, ys: np.ndarray
+                  ) -> list[list[tuple[int, int, int, int]]]:
+    """Maximal horizontal runs of the hot stripe mask, as per-group block
+    lists — the shared tail of the host (``_sweep_small_batch``) and
+    device (``repro_torch.kernels.sweep_grid``) grouped sweeps.
+
+    hot bool (G, NX-1, NX-1); xs/ys int (G, NX) sorted stripe boundaries
+    (stripe i spans ``xs[i]..xs[i+1]-1``).  Vectorized: +1/-1 edges of the
+    zero-padded hot mask mark run starts / one-past-run ends.
+    """
+    G, _, ny = hot.shape
+    NX = ny + 1
+    out: list[list[tuple[int, int, int, int]]] = [[] for _ in range(G)]
+    if not hot.any():
+        return out
+    hpad = np.zeros((G, NX - 1, NX + 1), np.int8)
+    hpad[:, :, 1:NX] = hot
+    edges = np.diff(hpad, axis=2)
+    gs, rows, cs = np.nonzero(edges == 1)     # run starts, row-major
+    _, _, ce = np.nonzero(edges == -1)        # aligned exclusive run ends
+    flat_blocks = np.stack([xs[gs, rows], xs[gs, rows + 1] - 1,
+                            ys[gs, cs], ys[gs, ce] - 1], axis=1).tolist()
+    grp = np.searchsorted(gs, np.arange(G + 1))   # gs ascending (row-major)
+    for g in range(G):
+        lo, hi = grp[g], grp[g + 1]
+        if hi > lo:
+            out[g] = [tuple(int(x) for x in r) for r in flat_blocks[lo:hi]]
+    return out
+
+
+def _gather_arena(index, sketches
+                  ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """One-shot host probe of ALL B*k coordinates against the fused arena:
+    (query ids (M,), windows (M, 5) int64, coordinate ids (M,))."""
+    arena = index.arena()
+    k = arena.k
+    pkeys, coords, valid = arena.encode_batch(sketches)
+    starts, ends = arena.probe(pkeys, coords, valid)
+    counts = ends - starts
+    rows = arena.windows[_concat_ranges(starts, counts)]
+    probe_ids = np.repeat(np.arange(len(pkeys), dtype=np.int64), counts)
+    return probe_ids // k, rows.astype(np.int64), probe_ids % k
+
+
+def batch_query(index, queries, theta: float, *,
+                options: QueryOptions | None = None, device=None,
+                stage_times: dict | None = None) -> list[list[Alignment]]:
+    """Definition-1 alignment for a batch of queries (the serving path).
+
+    ``options.plan`` picks the pipeline (see the module docstring); it is
+    resolved ONCE per batch by :func:`repro_torch.core.plan.resolve_plan`.
+    ``device`` is the torch device the device plan runs on (``None``
+    means ``"cuda"``, which raises where CUDA is absent); the cpu plan
+    ignores it.
+
+    ``stage_times``, when given, accumulates per-stage wall seconds under
+    the keys ``"sketch"``, ``"probe"`` and ``"sweep"`` (+= so one dict can
+    span many batches).
+    """
+    xp = resolve_plan(options)
+    B = len(queries)
+    if B == 0:
+        return []
+    m = max(1, math.ceil(index.scheme.k * theta))
+    t0 = time.perf_counter()
+    sk = index.scheme.sketch_batch(queries)
+    t1 = time.perf_counter()
+    if stage_times is not None:
+        stage_times["sketch"] = stage_times.get("sketch", 0.0) + (t1 - t0)
+    if xp.fused:
+        from .device_plan import fused_batch_query, resolve_device
+        return fused_batch_query(index, sk, B, m,
+                                 device=resolve_device(device),
+                                 stage_times=stage_times)
+    gathered = _gather_arena(index, sk)
+    t2 = time.perf_counter()
+    out = _sweep_gathered(gathered, B, m)
+    if stage_times is not None:
+        t3 = time.perf_counter()
+        stage_times["probe"] = stage_times.get("probe", 0.0) + (t2 - t1)
+        stage_times["sweep"] = stage_times.get("sweep", 0.0) + (t3 - t2)
+    return out
+
+
+def _group_bounds(qid_all: np.ndarray, tid_all: np.ndarray,
+                  cid_all: np.ndarray
+                  ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """(query, text) grouping of a gathered probe.
+
+    Returns ``(order, starts, ends, distinct)``: ``order`` stably sorts the
+    gathered rows by (query id, text id) — both gather orders
+    (coordinate-major and query-major) are coordinate-ascending within a
+    (query, text) group, which the stable sort preserves — ``starts``/
+    ``ends`` bound each group in the sorted order, and ``distinct`` counts
+    each group's distinct colliding sketch coordinates (the >= m
+    prefilter, one reduceat).  Shared by the host dispatcher and the fused
+    device pipeline (:mod:`repro_torch.core.device_plan`).
+    """
+    order = np.lexsort((tid_all, qid_all))
+    qid_s, tid_s, cid_s = qid_all[order], tid_all[order], cid_all[order]
+    n = len(qid_s)
+    change = (qid_s[1:] != qid_s[:-1]) | (tid_s[1:] != tid_s[:-1])
+    bounds = np.flatnonzero(change) + 1
+    starts = np.concatenate([[0], bounds])
+    ends = np.concatenate([bounds, [n]])
+    cid_step = np.empty(n, bool)
+    cid_step[0] = True
+    cid_step[1:] = cid_s[1:] != cid_s[:-1]
+    cid_step[starts] = True
+    distinct = np.add.reduceat(cid_step, starts)
+    return order, starts, ends, distinct
+
+
+#: small-group size buckets: padded width S stays tight for the (dominant)
+#: tiny groups instead of paying the largest small group everywhere
+_SIZE_BUCKETS = ((0, 8), (8, 16), (16, _SMALL_GROUP_MAX))
+
+
+def _sweep_gathered(gathered, B: int, m: int) -> list[list[Alignment]]:
+    """Group the gathered windows by (query, text) and plane-sweep each
+    group (the second stage of ``batch_query``)."""
+    qid_all, win_all, cid_all = gathered
+    results: list[list[Alignment]] = [[] for _ in range(B)]
+    if not len(qid_all):
+        return results
+
+    order, starts, ends, distinct = _group_bounds(
+        qid_all, win_all[:, 0], cid_all)
+    qid_all, win_all = qid_all[order], win_all[order]
+    keep = distinct >= m
+    sizes = ends - starts
+
+    small_results: dict[int, list] = {}
+    sm_ids = np.flatnonzero(keep & (sizes <= _SMALL_GROUP_MAX))
+    for b_lo, b_hi in _SIZE_BUCKETS:
+        ids = sm_ids[(sizes[sm_ids] > b_lo) & (sizes[sm_ids] <= b_hi)]
+        if not len(ids):
+            continue
+        s_starts, s_sizes = starts[ids], sizes[ids]
+        G, S = len(ids), int(s_sizes.max())
+        arr = np.zeros((G, S, 4), np.int64)
+        rows = win_all[_concat_ranges(s_starts, s_sizes), 1:5]
+        slot = np.arange(len(rows)) - np.repeat(
+            np.cumsum(s_sizes) - s_sizes, s_sizes)
+        arr[np.repeat(np.arange(G), s_sizes), slot] = rows
+        for g, blocks in zip(ids, _sweep_small_batch(arr, s_sizes, m)):
+            small_results[int(g)] = blocks
+
+    for g in np.flatnonzero(keep):
+        g = int(g)
+        lo = starts[g]
+        blocks = small_results[g] if g in small_results else \
+            _sweep_text(win_all[lo:ends[g], 1:5], m)
+        if blocks:
+            results[int(qid_all[lo])].append(
+                Alignment(text_id=int(win_all[lo, 0]), blocks=blocks,
+                          ncoords=int(distinct[g])))
+    return results
