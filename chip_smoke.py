@@ -42,9 +42,9 @@ Phases, none of them caught — any failure exits nonzero:
    and on seeded groups for every S in 1..32 with padding and zero-width
    rects.  Outputs must be equal.
 4. Report: per-kernel device times at the uniform main path's shapes
-   (``torch.profiler`` kernel time after warm-up; the wall time per call
-   between CUDA events is printed beside it) with the plain versions, the
-   bound and a library call; per corpus the resident arena bytes,
+   (CUDA events around replays of a CUDA graph of the calls, after
+   warm-up; the wall time per eager call between CUDA events is printed
+   beside it) with the plain versions, the bound and a library call; per corpus the resident arena bytes,
    host_large_groups, stage times, queries/s and peak device memory; a
    ``kernels`` JSON line; and last the ``{"ok": true, "device": ...}``
    line.
@@ -134,23 +134,38 @@ def call_ms(fn, *, warmup: int = 3, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, *, warmup: int = 3, iters: int = 20) -> float:
-    """Mean device milliseconds per call of ``fn``: the summed time of the
-    CUDA kernels (and copies) that ``torch.profiler`` records over
-    ``iters`` calls.  Raises if the profiler records no device time."""
+def device_ms(fn, *, reps: int = 20, replays: int = 5) -> float:
+    """Mean device milliseconds per call of ``fn``: ``reps`` calls are
+    captured once into a CUDA graph, and ``replays`` replays of the graph
+    are timed between two CUDA events.  The replays launch the captured
+    kernels back to back, so the Python launch overhead that
+    :func:`call_ms` includes stays out of this time."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
             fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages())
-    if total_us <= 0:
-        raise AssertionError("torch.profiler recorded no device time")
-    return total_us / 1e3 / iters
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / (reps * replays)
+    del graph
+    if not ms > 0:
+        raise AssertionError(f"graph replay timed at {ms} ms")
+    return ms
 
 
 def _max_abs_err(pairs) -> int:
@@ -528,7 +543,7 @@ def phase_report(main: dict, errs: dict) -> list[dict]:
     ms = {}
     for name, fn in timed.items():
         ms[name] = device_ms(fn)
-        print(f"{name}: {ms[name]:.6f} ms device (profiler), "
+        print(f"{name}: {ms[name]:.6f} ms device (graph replay), "
               f"{call_ms(fn):.6f} ms per call between CUDA events")
     s_bytes = s_ops = 0
     for _rect, idx, sizes, _m in calls:

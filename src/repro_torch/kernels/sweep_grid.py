@@ -79,9 +79,8 @@ def sweep_plain(win_rect, idx, sizes, m: int
     rect = win_rect[torch.where(pad, 0, idx)]                   # (G, S, 4)
     a, b1 = rect[..., 0], rect[..., 1] + 1
     c, d1 = rect[..., 2], rect[..., 3] + 1
-    neg = torch.tensor(_NEG, dtype=torch.int32, device=idx.device)
-    bmax = torch.where(pad, neg, b1).amax(dim=1, keepdim=True)
-    dmax = torch.where(pad, neg, d1).amax(dim=1, keepdim=True)
+    bmax = torch.where(pad, _NEG, b1).amax(dim=1, keepdim=True)
+    dmax = torch.where(pad, _NEG, d1).amax(dim=1, keepdim=True)
     a, b1 = torch.where(pad, bmax, a), torch.where(pad, bmax, b1)
     c, d1 = torch.where(pad, dmax, c), torch.where(pad, dmax, d1)
     bx = torch.cat([a, b1], dim=1)                              # (G, NX)
