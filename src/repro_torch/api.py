@@ -138,7 +138,8 @@ class Aligner:
              options: QueryOptions | None = None,
              stage_times: dict | None = None) -> QueryResult:
         """All indexed subsequences aligned with ``text`` at estimated
-        (weighted) Jaccard >= theta (paper Definition 1)."""
+        (weighted) Jaccard >= theta (paper Definition 1).  ``options`` as
+        for :meth:`find_batch`."""
         return self.find_batch([text], theta, options=options,
                                stage_times=stage_times)[0]
 
@@ -147,8 +148,12 @@ class Aligner:
                    stage_times: dict | None = None) -> list[QueryResult]:
         """Batched :meth:`find`: one :class:`QueryResult` per text.
         ``options.plan`` names the pipeline — ``"device"`` (the default),
-        ``"cpu"`` or ``"auto"``; ``stage_times`` accumulates per-stage wall
-        seconds under ``"sketch"``/``"probe"``/``"sweep"``."""
+        ``"cpu"`` or ``"auto"``.  ``QueryOptions(sketch_backend="pallas")``
+        pins the f32 CUDA sketch kernel on this Aligner's device under
+        either plan (weighted schemes; identities can differ from the
+        default exact sketch on argmin near-ties).  ``stage_times``
+        accumulates per-stage wall seconds under
+        ``"sketch"``/``"probe"``/``"sweep"``."""
         tokens = [self._tokens(t) for t in texts]
         res = batch_query(self._index, tokens, theta, options=options,
                           device=self.device, stage_times=stage_times)

@@ -5,16 +5,19 @@ Carried over from ``repro/core/plan.py``:
 * ``"device"`` — the default.  The arena stays resident on the card
   (:mod:`repro_torch.core.device_plan`), the probe and the small-group
   sweep run as hand-written CUDA kernels, and only final block extents
-  return to host.  Sketching stays on the exact host path, so the plan is
-  bit-identical to ``"cpu"`` by construction.
+  return to host.  Sketching stays on the exact host path by default, so
+  the plan is bit-identical to ``"cpu"`` by construction.
 * ``"cpu"``    — the NumPy reference path (exact host sketch, one host
   ``searchsorted`` over the fused arena, vectorized grouped sweep).
 * ``"auto"``   — ``"device"`` when CUDA is available, else ``"cpu"``.
 
-Each plan runs exactly one backend per stage.  A stage pin on
-``QueryOptions`` must name that backend; any other value — for instance
-``sketch_backend="pallas"``, the on-device ICWS sketch that is not ported
-yet — is a ``TypeError``, never a silent fallback.
+Both plans take the pin ``sketch_backend="pallas"``, as the reference's
+registry does: the reference's wire name for the on-device f32 ICWS
+sketch, which in the port is the hand-written CUDA kernel
+:func:`repro_torch.kernels.icws_hash.icws_sketch_batch` (it runs on the
+``Aligner``'s device under either plan).  Every other stage runs exactly
+one backend per plan; pinning a value a plan cannot execute is a
+``TypeError``, never a silent fallback.
 """
 
 from __future__ import annotations
@@ -44,11 +47,12 @@ class ExecutionPlan:
         return self.probe_backend == "device" and self.sweep == "device"
 
 
+#: plan -> stage -> (default, *other values the plan can execute)
 _PLANS = {
-    "cpu": {"sketch_backend": "exact", "probe_backend": "numpy",
-            "sweep": "grouped"},
-    "device": {"sketch_backend": "exact", "probe_backend": "device",
-               "sweep": "device"},
+    "cpu": {"sketch_backend": ("exact", "pallas"),
+            "probe_backend": ("numpy",), "sweep": ("grouped",)},
+    "device": {"sketch_backend": ("exact", "pallas"),
+               "probe_backend": ("device",), "sweep": ("device",)},
 }
 
 
@@ -75,14 +79,16 @@ def resolve_plan(options=None) -> ExecutionPlan:
                 if getattr(options, f) is not None}
     if name == "auto":
         name = "device" if device_preferred() else "cpu"
-    stages = _PLANS.get(name)
-    if stages is None:
+    choices = _PLANS.get(name)
+    if choices is None:
         raise ValueError(f"unknown execution plan {name!r}; "
                          f"registered plans: {plan_names()}")
+    stages = {f: vals[0] for f, vals in choices.items()}
     for f, v in pins.items():
-        if v != stages[f]:
+        if v not in choices[f]:
             raise TypeError(
-                f"plan {name!r} cannot execute {f}={v!r} (it runs "
-                f"{f}={stages[f]!r}); pinning a stage beyond what the plan "
-                "supports is an error, not a fallback")
+                f"plan {name!r} cannot execute {f}={v!r} (valid pins: "
+                f"{sorted(choices[f])}); pinning a stage beyond what the "
+                "plan supports is an error, not a fallback")
+        stages[f] = v
     return ExecutionPlan(name=name, **stages)

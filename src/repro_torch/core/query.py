@@ -14,7 +14,10 @@ path.  ``batch_query`` resolves the execution plan once per batch:
   (``_sweep_small_batch``) and the rare large ones through ``_sweep_text``.
 
 The grouping, the host sweeps and the run extraction are NumPy, shared by
-both plans, so the two are block-identical by construction.
+both plans, so the two are block-identical by construction.  Either plan
+sketches on the exact host path unless ``sketch_backend="pallas"`` pins
+the f32 CUDA sketch kernel (``repro_torch.kernels.icws_hash``), which then
+runs on the caller's device under both plans.
 """
 
 from __future__ import annotations
@@ -218,9 +221,11 @@ def batch_query(index, queries, theta: float, *,
 
     ``options.plan`` picks the pipeline (see the module docstring); it is
     resolved ONCE per batch by :func:`repro_torch.core.plan.resolve_plan`.
-    ``device`` is the torch device the device plan runs on (``None``
-    means ``"cuda"``, which raises where CUDA is absent); the cpu plan
-    ignores it.
+    ``device`` is the torch device the device plan, and under either plan
+    the pinned ``sketch_backend="pallas"`` sketch, runs on (``None`` means
+    ``"cuda"``, which raises where CUDA is absent); the cpu plan with the
+    exact sketch ignores it.  The pinned sketch's stage time ends when its
+    identities are back on the host, a device sync.
 
     ``stage_times``, when given, accumulates per-stage wall seconds under
     the keys ``"sketch"``, ``"probe"`` and ``"sweep"`` (+= so one dict can
@@ -232,7 +237,8 @@ def batch_query(index, queries, theta: float, *,
         return []
     m = max(1, math.ceil(index.scheme.k * theta))
     t0 = time.perf_counter()
-    sk = index.scheme.sketch_batch(queries)
+    sk = index.scheme.sketch_batch(queries, backend=xp.sketch_backend,
+                                   device=device)
     t1 = time.perf_counter()
     if stage_times is not None:
         stage_times["sketch"] = stage_times.get("sketch", 0.0) + (t1 - t0)

@@ -183,9 +183,13 @@ class QueryOptions:
         ``"auto"`` (device when CUDA is available, else cpu).  Resolved
         once per batch by ``repro_torch.core.plan.resolve_plan``.
     sketch_backend / probe_backend / sweep: per-stage *pins*.  ``None``
-        lets the plan pick; pinning a value the plan cannot execute (for
-        example ``sketch_backend="pallas"``, whose kernel is not ported)
-        raises ``TypeError`` at resolution.
+        lets the plan pick; pinning a value the plan cannot execute raises
+        ``TypeError`` at resolution.  ``sketch_backend="pallas"`` (the
+        reference's wire name, kept so the wire form stays identical)
+        sketches the batch with the hand-written f32 CUDA kernel
+        ``repro_torch.kernels.icws_hash.icws_sketch_batch`` under either
+        plan; its identities can differ from the exact host sketch on
+        argmin near-ties, so it is a pin, never a default.
     """
 
     plan: str = "device"

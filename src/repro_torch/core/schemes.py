@@ -1,9 +1,10 @@
 """Sketch schemes and the ``make_scheme`` registry.
 
 Carried over from ``repro/core/schemes.py`` (NumPy host code), trimmed to
-what the columnar build and the exact query sketch call.  ``sketch_batch``
-runs the exact float64/uint64 path only; the on-device ICWS sketch kernel
-is not ported yet, so no other backend exists here.
+what the columnar build and the query sketch call.  ``sketch_batch`` runs
+the exact float64/uint64 host path by default; ``backend="pallas"`` (the
+reference's wire name) sketches a weighted batch with the hand-written f32
+CUDA kernel :func:`repro_torch.kernels.icws_hash.icws_sketch_batch`.
 
   * ``MultisetScheme``  — integer universal (or splitmix) min-hash for
     multi-set Jaccard; index key ``int(h)``.
@@ -54,9 +55,12 @@ class MultisetScheme:
         """k min-hash identities of a whole text (Eq. 1)."""
         return self.sketch_batch([tokens])[0]
 
-    def sketch_batch(self, texts) -> list[list]:
+    def sketch_batch(self, texts, *, backend: str = "exact",
+                     device=None) -> list[list]:
         """Sketches of many texts: one vectorized hash call per (text,
-        hasher) over the flat (t, x) grid."""
+        hasher) over the flat (t, x) grid.  Integer hashes are exact on
+        every backend, so ``backend`` and ``device`` are accepted for
+        signature parity and ignored, as in the reference."""
         out = []
         for tokens in texts:
             occ = occurrence_lists(np.asarray(tokens, dtype=np.int64))
@@ -92,10 +96,30 @@ class WeightedScheme:
             out.append((t_star, k_star))
         return out
 
-    def sketch_batch(self, texts) -> list[list]:
-        """Exact sketches of many texts (float64 host math, bit-identical to
-        per-text ``sketch``): the whole batch in one flat (k, N) hash
-        evaluation plus a padded segmented argmin, chunked."""
+    def sketch_batch(self, texts, *, backend: str = "exact",
+                     device=None) -> list[list]:
+        """Sketches of many texts.
+
+        backend="exact"  — float64 host math, bit-identical to per-text
+        ``sketch`` (the default; what result parity assumes): the whole
+        batch in one flat (k, N) hash evaluation plus a padded segmented
+        argmin, chunked.
+        backend="pallas" — the reference's name for the on-device sketch:
+        all texts through the hand-written CUDA kernel ``icws_sketch_batch``
+        in one launch on ``device`` (``None`` means ``"cuda"``; the CPU
+        runs the kernel's plain version).  f32 math: identities can differ
+        from the exact path on argmin near-ties.
+        """
+        if backend == "pallas":
+            from ..kernels.ops import cws_sketch_batch
+            token_lists, weight_lists = [], []
+            for tokens in texts:
+                toks, freqs = np.unique(np.asarray(tokens, dtype=np.int64),
+                                        return_counts=True)
+                token_lists.append(toks)
+                weight_lists.append(self.weight(toks, freqs))
+            return cws_sketch_batch(self.seed, self.k, token_lists,
+                                    weight_lists, device=device)
         uniq = [np.unique(np.asarray(t, dtype=np.int64), return_counts=True)
                 for t in texts]
         if not uniq or min(len(u) for u, _ in uniq) == 0:

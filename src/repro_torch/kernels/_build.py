@@ -9,9 +9,10 @@ edited source rebuilds and an unchanged one is reused.  The
 compiler's ``-Xptxas -v`` report (registers, shared memory, spills) is
 kept beside the library (:func:`build_log`).
 
-``build`` starts one ``nvcc`` per missing library, all at once.  A missing
-``nvcc`` or a failed compile raises ``RuntimeError``: nothing falls back
-to the plain versions.
+``build`` starts one ``nvcc`` per missing library, all at once; the first
+use of any kernel builds every source of :data:`SOURCES` that is missing,
+in parallel.  A missing ``nvcc`` or a failed compile raises
+``RuntimeError``: nothing falls back to the plain versions.
 """
 
 from __future__ import annotations
@@ -29,6 +30,9 @@ _CHECKOUT = Path(__file__).resolve().parents[3]
 BUILD_DIR_ENV = "REPRO_TORCH_BUILD_DIR"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+#: every ``csrc/<name>.cu`` the port builds
+SOURCES = ("probe_arena", "sweep_grid", "icws_hash", "minhash_sketch")
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -105,11 +109,12 @@ def build(names) -> None:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    """The loaded library for ``csrc/<name>.cu``; the first use builds it
+    together with every other missing source of :data:`SOURCES`."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            build([name])
+            build(dict.fromkeys((name, *SOURCES)))
             lib = ctypes.CDLL(str(lib_path(name)))
             err = getattr(lib, f"{name}_error_string")
             err.argtypes = [ctypes.c_int]

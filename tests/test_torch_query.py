@@ -153,8 +153,10 @@ def test_plan_registry():
     assert resolve_plan("cpu").probe_backend == "numpy"
     assert resolve_plan("auto").name == \
         ("device" if torch.cuda.is_available() else "cpu")
-    with pytest.raises(TypeError, match="sketch_backend='pallas'"):
-        resolve_plan(QueryOptions(sketch_backend="pallas"))
+    assert resolve_plan(QueryOptions(sketch_backend="pallas")
+                        ).sketch_backend == "pallas"
+    with pytest.raises(TypeError, match="sketch_backend='device'"):
+        resolve_plan(QueryOptions(sketch_backend="device"))
     with pytest.raises(TypeError):
         resolve_plan(QueryOptions(plan="cpu", sweep="device"))
     with pytest.raises(ValueError, match="unknown execution plan"):
@@ -205,6 +207,9 @@ def test_port_imports_no_jax_and_no_reference():
         "import repro_torch, repro_torch.api, repro_torch.core.device_plan\n"
         "import repro_torch.kernels.probe_arena, "
         "repro_torch.kernels.sweep_grid, repro_torch.data.tokenizer\n"
+        "import repro_torch.kernels.icws_hash, "
+        "repro_torch.kernels.minhash_sketch, repro_torch.kernels.ops, "
+        "repro_torch.kernels.common\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
